@@ -1,4 +1,4 @@
-"""deepfluids_tpu — a TPU-native (JAX/Flax/XLA/pjit/Pallas) rebuild of Deep Fluids.
+"""deepfluids_tpu — a JAX (XLA/pjit) rebuild of Deep Fluids.
 
 Re-implements the full capability surface of the reference repo
 ``byungsook/deep-fluids`` (see /root/repo/SURVEY.md for the structural analysis;
@@ -7,13 +7,13 @@ sections rather than file:line):
 
 - ``ops``      — finite-difference physics core: curl (p -> psi -> u = curl(psi),
                  divergence-free by construction), jacobian/vorticity losses;
-                 jnp oracle + fused Pallas TPU stencils.  [SURVEY §2 "ops.py"]
+                 plain jnp stencils fused by XLA.  [SURVEY §2 "ops.py"]
 - ``models``   — GeneratorBE decoder, Encoder/Autoencoder, latent-integration
                  MLP.  [SURVEY §2 "model.py"]
 - ``data``     — args.txt manifest + .npz field contract, normalization,
                  host-sharded batch pipeline.  [SURVEY §2 "data.py"]
 - ``train``    — jit/pjit train step, Adam + cosine LR, L1 + jacobian loss,
-                 Orbax checkpointing, metrics.  [SURVEY §2 "trainer.py"]
+                 .npz checkpointing, metrics.  [SURVEY §2 "trainer.py"]
 - ``infer``    — batched parameter sweeps (vmap over the param grid) and
                  lax.scan latent rollouts.  [SURVEY §3.2, §3.4]
 - ``datagen``  — JAX-native smoke/liquid solvers replacing the mantaflow

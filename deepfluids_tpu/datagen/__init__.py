@@ -3,7 +3,7 @@
 Replaces the reference's external mantaflow C++ solver (SURVEY.md §2
 "Languages", §3.5 [M]): the same role — produce ``data/<name>/v/*.npz`` +
 ``args.txt`` training datasets — but implemented as jit-compiled,
-``lax.scan``-stepped JAX programs that run on TPU/CPU with no external
+``lax.scan``-stepped JAX programs that run on GPU/CPU with no external
 dependency.  Scene configs mirror the reference's four scripts
 (smoke_pos21_size5, smoke_mov200_f400, liquid_pos10_size4,
 smoke3_vel5_buo3_f250).

@@ -132,7 +132,7 @@ def simulate_smoke2d_batch(pos_x, radius, cfg: Smoke2DConfig):
     """Vectorized scene sweep: S solver instances in one device program.
 
     mantaflow ran one C++ scene at a time (SURVEY.md §3.5); here the whole
-    parameter sweep vmaps over (pos_x [S], radius [S]) so the TPU solves
+    parameter sweep vmaps over (pos_x [S], radius [S]) so the device solves
     every scene simultaneously — the datagen analogue of batched inference.
 
     Returns (vel [S,T,H,W,2], rho [S,T,H,W]).

@@ -5,7 +5,7 @@ codes, the 'code' set consumed by arch 'nn') and §3.4 (test-time rollout:
 encode a start frame, advance z with the integrator, decode each step).
 Here the rollout is one ``lax.scan`` and decode is vmapped over time, so a
 whole trajectory is produced in two compiled calls with no host round-trips
-(BASELINE.json north_star [B]: "whole trajectories stay on TPU").
+(whole trajectories stay on the device).
 """
 
 from __future__ import annotations

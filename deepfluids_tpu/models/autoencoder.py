@@ -13,17 +13,20 @@ Latent layout convention (used by the latent integrator, SURVEY.md §3.4):
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
-import flax.linen as nn
 import jax.numpy as jnp
 
 from deepfluids_tpu.models.generator import (GeneratorBE, default_repeat,
                                              spatial_constraint)
 from deepfluids_tpu.models.latent import LatentIntegrator
+from deepfluids_tpu.models.layers import (Module, Scope, conv, dense,
+                                          leaky_relu)
 
 
-class Encoder(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class Encoder(Module):
     """Velocity/levelset field -> latent code z.
 
     Mirror of :class:`GeneratorBE`: ``repeat`` stages of {num_conv 3x3 convs
@@ -39,35 +42,34 @@ class Encoder(nn.Module):
     dtype: jnp.dtype = jnp.float32
     spatial_mesh: Any = None
 
-    @nn.compact
-    def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
+    def __call__(self, s: Scope, x: jnp.ndarray) -> jnp.ndarray:
         spatial = x.shape[1:-1]
         rep = self.repeat or default_repeat(tuple(spatial) + (0,))
         ndim = len(spatial)
         kernel = (3,) * ndim
-        act = lambda v: nn.leaky_relu(v, negative_slope=self.act_slope)
+        act = lambda v: leaky_relu(v, negative_slope=self.act_slope)
 
-        h = nn.Conv(self.filters, kernel, dtype=self.dtype,
-                    name="conv_in")(x.astype(self.dtype))
+        h = conv(s.child("conv_in"), x, self.filters, kernel, self.dtype)
         h = spatial_constraint(h, self.spatial_mesh)
         h0 = h
         for stage in range(rep):
             for c in range(self.num_conv):
-                h = act(nn.Conv(self.filters, kernel, dtype=self.dtype,
-                                name=f"conv_{stage}_{c}")(h))
+                h = act(conv(s.child(f"conv_{stage}_{c}"), h, self.filters,
+                             kernel, self.dtype))
                 h = spatial_constraint(h, self.spatial_mesh)
             h = h + h0
             if stage < rep - 1:
-                h = act(nn.Conv(self.filters, kernel, strides=(2,) * ndim,
-                                dtype=self.dtype, name=f"down_{stage}")(h))
+                h = act(conv(s.child(f"down_{stage}"), h, self.filters,
+                             kernel, self.dtype, strides=(2,) * ndim))
                 h = spatial_constraint(h, self.spatial_mesh)
                 h0 = h
         h = h.reshape((h.shape[0], -1))
-        z = nn.Dense(self.z_num, dtype=self.dtype, name="fc_out")(h)
+        z = dense(s.child("fc_out"), h, self.z_num, self.dtype)
         return z.astype(jnp.float32)
 
 
-class Autoencoder(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class Autoencoder(Module):
     """Encoder + GeneratorBE decoder; returns (psi_hat, z).
 
     The caller applies curl to psi_hat (same contract as the generator) and
@@ -97,42 +99,38 @@ class Autoencoder(nn.Module):
     pred_hidden: int = 0
     pred_depth: int = 2
 
-    def setup(self):
-        if self.pred_hidden > 0:
-            self.predictor = LatentIntegrator(
-                z_num=self.z_num, num_param=self.num_param,
-                hidden=self.pred_hidden, depth=self.pred_depth,
-            )
-        self.encoder = Encoder(
+    def __call__(self, s: Scope,
+                 x: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
+        z = self.encode(s, x)
+        psi = self.decode(s, z)
+        if self.pred_hidden > 0 and s.initializing:
+            # Touch the predictor during init so its params are created
+            # (the training loss applies it via method=predict).
+            self.predict(s, z, jnp.zeros((z.shape[0], self.num_param)))
+        return psi, z
+
+    def encode(self, s: Scope, x: jnp.ndarray) -> jnp.ndarray:
+        return Encoder(
             z_num=self.z_num, filters=self.filters, num_conv=self.num_conv,
             repeat=self.repeat, act_slope=self.act_slope, dtype=self.dtype,
             spatial_mesh=self.spatial_mesh,
-        )
-        self.decoder = GeneratorBE(
+        )(s.child("encoder"), x)
+
+    def decode(self, s: Scope, z: jnp.ndarray) -> jnp.ndarray:
+        return GeneratorBE(
             output_shape=self.output_shape, filters=self.filters,
             num_conv=self.num_conv, repeat=self.repeat,
             act_slope=self.act_slope, dtype=self.dtype,
             spatial_mesh=self.spatial_mesh,
-        )
+        )(s.child("decoder"), z)
 
-    def __call__(self, x: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
-        z = self.encoder(x)
-        psi = self.decoder(z)
-        if self.pred_hidden > 0 and self.is_initializing():
-            # Touch the predictor during init so its params are created
-            # (the training loss applies it via method=predict).
-            self.predictor(z, jnp.zeros((z.shape[0], self.num_param)))
-        return psi, z
-
-    def encode(self, x: jnp.ndarray) -> jnp.ndarray:
-        return self.encoder(x)
-
-    def decode(self, z: jnp.ndarray) -> jnp.ndarray:
-        return self.decoder(z)
-
-    def predict(self, z: jnp.ndarray, dp: jnp.ndarray) -> jnp.ndarray:
+    def predict(self, s: Scope, z: jnp.ndarray,
+                dp: jnp.ndarray) -> jnp.ndarray:
         """Co-trained one-step latent predictor: ``dz_free`` from
         ``[z_t ; dp_t]`` (same contract as the standalone integrator)."""
         if self.pred_hidden <= 0:
             raise ValueError("predict() needs pred_hidden > 0")
-        return self.predictor(z, dp)
+        return LatentIntegrator(
+            z_num=self.z_num, num_param=self.num_param,
+            hidden=self.pred_hidden, depth=self.pred_depth,
+        )(s.child("predictor"), z, dp)

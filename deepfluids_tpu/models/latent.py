@@ -16,12 +16,16 @@ keeps whole trajectories on device with O(1) compiled program size
 
 from __future__ import annotations
 
-import flax.linen as nn
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 
+from deepfluids_tpu.models.layers import Module, Scope, dense, elu, zeros
 
-class LatentIntegrator(nn.Module):
+
+@dataclasses.dataclass(frozen=True)
+class LatentIntegrator(Module):
     """MLP: [z_t ; dp_t] -> dz_free_t (residual update of the free block).
 
     The input is the FULL latent code (supervised parameter block included —
@@ -47,19 +51,18 @@ class LatentIntegrator(nn.Module):
     def free_dim(self) -> int:
         return self.z_num - self.num_param
 
-    @nn.compact
-    def __call__(self, z: jnp.ndarray, dp: jnp.ndarray) -> jnp.ndarray:
+    def __call__(self, s: Scope, z: jnp.ndarray,
+                 dp: jnp.ndarray) -> jnp.ndarray:
         h = jnp.concatenate([z, dp], axis=-1).astype(self.dtype)
         for i in range(self.depth):
-            h = nn.elu(nn.Dense(self.hidden, dtype=self.dtype,
-                                name=f"fc_{i}")(h))
+            h = elu(dense(s.child(f"fc_{i}"), h, self.hidden, self.dtype))
         # Zero-init the head: the initial rollout is then the identity map
         # (dz = 0), so the w-step recurrent unroll starts from the natural
         # variance of z instead of compounding random residuals (a random
         # head makes the initial 30-step loss explode ~120x and slows
         # convergence badly — measured on smoke_mov).
-        out = nn.Dense(self.free_dim, dtype=self.dtype, name="fc_out",
-                       kernel_init=nn.initializers.zeros)(h)
+        out = dense(s.child("fc_out"), h, self.free_dim, self.dtype,
+                    kernel_init=zeros)
         return out.astype(jnp.float32)
 
 

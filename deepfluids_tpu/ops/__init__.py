@@ -2,8 +2,8 @@
 
 Reference parity target: ``ops.py`` of byungsook/deep-fluids (SURVEY.md §2
 "Differential ops" [M]) — forward finite differences with edge replication so
-outputs keep the grid shape.  ``fd`` is the jnp oracle; ``pallas_fd`` provides
-fused TPU stencil kernels behind the same API with the oracle as fallback.
+outputs keep the grid shape.  ``fd`` holds the stencils in plain jnp; XLA
+fuses them into the surrounding loss or inference program.
 """
 
 from deepfluids_tpu.ops.fd import (
@@ -16,13 +16,6 @@ from deepfluids_tpu.ops.fd import (
     vorticity2d,
     vorticity3d,
 )
-from deepfluids_tpu.ops.pallas_fd import (
-    curl2d_fused,
-    jacobian2d_fused,
-    curl3d_fused,
-    jacobian3d_fused,
-    use_pallas,
-)
 
 __all__ = [
     "curl2d",
@@ -33,9 +26,4 @@ __all__ = [
     "divergence3d",
     "vorticity2d",
     "vorticity3d",
-    "curl2d_fused",
-    "jacobian2d_fused",
-    "curl3d_fused",
-    "jacobian3d_fused",
-    "use_pallas",
 ]

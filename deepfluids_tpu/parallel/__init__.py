@@ -1,9 +1,9 @@
 """Parallelism layer: device mesh, sharding specs, distributed init.
 
 The reference is single-process / single-GPU (SURVEY.md §2 "Parallelism /
-comm backend": NONE) — everything here is an *additive* TPU-native component:
-SPMD data parallelism over a `jax.sharding.Mesh` with XLA collectives riding
-ICI, per SURVEY.md §2's parallelism-mapping table.
+comm backend": NONE) — everything here is an *additive* component: SPMD
+data parallelism over a `jax.sharding.Mesh` with XLA's collectives, per
+SURVEY.md §2's parallelism-mapping table.
 """
 
 from deepfluids_tpu.parallel.mesh import (

@@ -1,14 +1,13 @@
 """Spatially-sharded finite-difference stencils with halo exchange.
 
 SURVEY.md §2's parallelism table maps the reference's (absent) sequence/
-context parallelism to **spatial sharding of grids with halo exchange over
-ICI** — the capability that matters once fields outgrow one chip's HBM
-(large 3D grids), even though the reference resolutions don't need it.
+context parallelism to **spatial sharding of grids with halo exchange** —
+the capability that matters once fields outgrow one device's memory (large
+3D grids), even though the reference resolutions don't need it.
 
 Scheme: the grid's H (y) axis is sharded over the mesh's data axis.  The
 forward difference ``d[i] = x[i+1] - x[i]`` needs each shard's successor's
-FIRST row — one `ppermute` neighbor shift per field (a single ICI hop on a
-ring).  The global last row keeps the oracle's edge replication.  Everything
+FIRST row — one `ppermute` neighbor shift per field.  The global last row keeps the oracle's edge replication.  Everything
 is `shard_map`-ped, so XLA overlaps the halo transfer with local compute.
 
 The jnp oracle (`ops.fd`) remains the semantic reference: for any
@@ -45,7 +44,7 @@ def _fdiff_h_sharded(x_local: jnp.ndarray, axis_name: str) -> jnp.ndarray:
     if h_loc >= 2:
         # The backward diff at the global last row only needs LOCAL rows
         # when the shard holds >= 2 of them — skip the predecessor
-        # transfer entirely (one less ICI collective per stencil call).
+        # transfer entirely (one less collective per stencil call).
         ext = jnp.concatenate([x_local, nxt], axis=1)   # [B, H_loc+1, ...]
         fwd = ext[:, 1:] - ext[:, :-1]                  # x[j+1] - x[j]
         bwd = jnp.concatenate([fwd[:, :1],              # row 0 never "last"
@@ -112,8 +111,8 @@ def divergence2d_sharded(x: jnp.ndarray, mesh: Mesh) -> jnp.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# 3D: depth-sharded stencils (SURVEY.md §7 "3D halo exchange over ICI for
-# sharded 112x64x32 grids").  D (z) is the sharded axis — one ppermute halo
+# 3D: depth-sharded stencils (SURVEY.md §7 "3D halo exchange for sharded
+# 112x64x32 grids").  D (z) is the sharded axis — one ppermute halo
 # slice per z-derivative; in-plane derivatives stay local.
 # ---------------------------------------------------------------------------
 

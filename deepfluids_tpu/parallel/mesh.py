@@ -6,8 +6,8 @@ point where spatially sharding one grid pays for halo traffic.  The winning
 layout is therefore:
 
   * **data axis**: shard the BATCH (training) or the PARAMETER SWEEP
-    (inference) across chips; weights replicated.  Gradients are combined by
-    XLA's automatic all-reduce over ICI — no hand-written collectives needed.
+    (inference) across devices; weights replicated.  Gradients are combined
+    by XLA's automatic all-reduce — no hand-written collectives needed.
   * weights/optimizer state: replicated (model is ~30 MB of f32 params).
 
 The mesh is 1-axis ("data") by default; `make_mesh` accepts an explicit
@@ -158,29 +158,28 @@ def init_distributed() -> bool:
     """Initialize multi-host JAX (SURVEY.md §5 "Distributed comm backend").
 
     `jax.distributed.initialize` wires hosts together so `jax.devices()`
-    spans every process and the mesh helpers above shard over all chips;
-    collectives ride ICI within a slice and DCN across slices (gloo on the
-    CPU backend — exercised by tests/test_multihost.py and
-    tools/launch_multihost.py).
+    spans every process and the mesh helpers above shard over all devices
+    (NCCL between GPUs; gloo on the CPU backend — exercised by
+    tests/test_multihost.py and tools/launch_multihost.py).
 
     Configuration comes from the environment: ``JAX_COORDINATOR_ADDRESS``
     (+ ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID`` for manual launches like
-    tools/launch_multihost.py; pod schedulers that set only the coordinator
-    address use jax's own cluster autodetection).  No-ops (returns False)
-    in single-process runs — safe to call unconditionally from main().
+    tools/launch_multihost.py; cluster schedulers that set only the
+    coordinator address use jax's own cluster autodetection).  No-ops
+    (returns False) in single-process runs — safe to call unconditionally
+    from main().
     """
     import os
 
-    addr = os.environ.get("JAX_COORDINATOR_ADDRESS") or os.environ.get(
-        "MEGASCALE_COORDINATOR_ADDRESS")
+    addr = os.environ.get("JAX_COORDINATOR_ADDRESS")
     if not addr:
         return False
     # Cross-process collectives on the CPU backend need gloo (no-op for
-    # TPU, where XLA owns the ICI/DCN collectives).
+    # GPUs, where XLA runs the collectives through NCCL).
     try:
         jax.config.update("jax_cpu_collectives_implementation", "gloo")
     except Exception:
-        pass  # option absent/renamed: TPU path works regardless
+        pass  # option absent/renamed: the GPU path works regardless
     nproc = os.environ.get("JAX_NUM_PROCESSES")
     pid = os.environ.get("JAX_PROCESS_ID")
     if nproc is not None and pid is not None:

@@ -2,7 +2,7 @@
 
 Reference parity target: ``trainer.py`` of byungsook/deep-fluids
 (SURVEY.md §2 "Trainer", §3.1/3.3/3.4 call stacks [M][B]) — rebuilt as
-jit/pjit-compiled functional train steps over a device mesh with Orbax
+jit/pjit-compiled functional train steps over a device mesh with .npz
 checkpoints, instead of a TF1 Supervisor session.
 """
 

@@ -19,32 +19,15 @@ All functions are pure, statically shaped, and dispatch 2D vs 3D on rank
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
-from jax import shard_map
-from jax.sharding import PartitionSpec as P
 
-from deepfluids_tpu.ops import fd, pallas_fd
-from deepfluids_tpu.parallel.mesh import DATA_AXIS
+from deepfluids_tpu.ops import fd
 
-
-def _maybe_shard_batch(op, mesh, n_out: int = 1):
-    """Partition a per-sample fused op over the mesh's data (batch) axis.
-
-    ``pallas_call`` has no GSPMD partitioning rule, so inside a multi-chip
-    jit an unwrapped kernel would force an all-gather of the batch and run
-    replicated.  The stencils are independent per batch element, so
-    shard_map over the batch dim keeps each chip running its fused kernel
-    on its local shard — the SURVEY §2 parallelism-table design
-    (Pallas + shard_map).  Gradients flow through (shard_map is
-    differentiable; the custom VJP applies per-shard)."""
-    if mesh is None or mesh.shape.get(DATA_AXIS, 1) <= 1:
-        return op
-    spec = P(DATA_AXIS)
-    out_specs = spec if n_out == 1 else tuple([spec] * n_out)
-    # check_vma=False: pallas_call's out_shape carries no varying-mesh-axes
-    # info, so the vma check cannot see the outputs are batch-varying.
-    return shard_map(op, mesh=mesh, in_specs=(spec,), out_specs=out_specs,
-                     check_vma=False)
+# Named scopes on the stencil terms: tools/profile_step.py finds the fused
+# kernels that compute them (forward and VJP) by these names.
+CURL_SCOPE = "fd_curl"
+JACOBIAN_SCOPE = "fd_jacobian"
 
 
 def _dist(norm: str):
@@ -73,33 +56,20 @@ def _grad_scalar(x: jnp.ndarray) -> jnp.ndarray:
     return jnp.stack(comps, axis=-1)
 
 
-def jacobian_of(x: jnp.ndarray, fused: bool | None = None,
-                mesh=None) -> jnp.ndarray:
+def jacobian_of(x: jnp.ndarray) -> jnp.ndarray:
     """Full first-derivative stack of a field; dispatches on rank/channels.
 
     [B,H,W,2] -> [B,H,W,4]; [B,D,H,W,3] -> [B,D,H,W,9]; scalar [...,1] ->
-    spatial gradient.  ``fused`` selects the Pallas custom-VJP stencils
-    (bit-identical to the oracle in f32); default = on-TPU.  On a
-    multi-chip data mesh pass ``mesh`` so the fused kernel is shard_mapped
-    over the batch axis (see :func:`_maybe_shard_batch`); batch size must
-    then be divisible by the data-axis size (the DP contract).
+    spatial gradient.  Plain ``ops.fd`` stencils: XLA fuses them with the
+    distance and the mean into one pass over each field, and GSPMD
+    partitions them over a batch-sharded data mesh.
     """
-    if fused is None:
-        fused = pallas_fd.use_pallas()
     if x.shape[-1] == 1:
         return _grad_scalar(x)
     if x.ndim == 4:
-        if fused:
-            j, _ = _maybe_shard_batch(pallas_fd.jacobian2d_p, mesh, 2)(x)
-        else:
-            j, _ = fd.jacobian2d(x)
-        return j
+        return fd.jacobian2d(x)[0]
     if x.ndim == 5:
-        if fused:
-            j, _ = _maybe_shard_batch(pallas_fd.jacobian3d_p, mesh, 2)(x)
-        else:
-            j, _ = fd.jacobian3d(x)
-        return j
+        return fd.jacobian3d(x)[0]
     raise ValueError(f"unsupported field shape {x.shape}")
 
 
@@ -122,8 +92,6 @@ def _sample_weights(target: jnp.ndarray, eps: float = 0.05) -> jnp.ndarray:
 
 def field_loss(pred: jnp.ndarray, target: jnp.ndarray,
                w1: float, w2: float,
-               fused: bool | None = None,
-               mesh=None,
                relative: bool = False,
                norm: str = "l1") -> tuple[jnp.ndarray, dict]:
     """w1·dist(field) + w2·dist(jacobian) — the core reconstruction loss.
@@ -135,8 +103,8 @@ def field_loss(pred: jnp.ndarray, target: jnp.ndarray,
     Adam than L1's constant-magnitude sign gradient)."""
     dist = _dist(norm)
     ef = dist(pred - target)
-    ej = dist(jacobian_of(pred, fused, mesh) - jacobian_of(target, fused,
-                                                           mesh))
+    with jax.named_scope(JACOBIAN_SCOPE):
+        ej = dist(jacobian_of(pred) - jacobian_of(target))
     if relative:
         wb = _sample_weights(target)
         if norm == "l2":
@@ -152,32 +120,23 @@ def field_loss(pred: jnp.ndarray, target: jnp.ndarray,
     return w1 * loss_f + w2 * loss_j, {"loss_field": loss_f, "loss_jac": loss_j}
 
 
-def apply_curl(out: jnp.ndarray, fused: bool | None = None,
-               mesh=None) -> jnp.ndarray:
-    """psi/Psi -> velocity via the matched curl; dispatches on rank.
-    ``fused`` selects the Pallas custom-VJP stencils; ``mesh`` shard_maps
-    them over the batch axis on a multi-chip data mesh (see jacobian_of);
-    default = on-TPU."""
-    if fused is None:
-        fused = pallas_fd.use_pallas()
-    if out.ndim == 4:
-        return (_maybe_shard_batch(pallas_fd.curl2d_p, mesh)(out)
-                if fused else fd.curl2d(out))
-    if out.ndim == 5:
-        return (_maybe_shard_batch(pallas_fd.curl3d_p, mesh)(out)
-                if fused else fd.curl3d(out))
+def apply_curl(out: jnp.ndarray) -> jnp.ndarray:
+    """psi/Psi -> velocity via the matched curl; dispatches on rank."""
+    with jax.named_scope(CURL_SCOPE):
+        if out.ndim == 4:
+            return fd.curl2d(out)
+        if out.ndim == 5:
+            return fd.curl3d(out)
     raise ValueError(f"unsupported potential shape {out.shape}")
 
 
 def generator_loss(net_out: jnp.ndarray, x: jnp.ndarray, use_curl: bool,
                    w1: float, w2: float,
-                   fused: bool | None = None,
-                   mesh=None,
                    relative: bool = False,
                    norm: str = "l1") -> tuple[jnp.ndarray, dict]:
     """Arch "de" loss.  net_out is psi (use_curl) or the field directly."""
-    pred = apply_curl(net_out, fused, mesh) if use_curl else net_out
-    loss, aux = field_loss(pred, x, w1, w2, fused, mesh, relative, norm)
+    pred = apply_curl(net_out) if use_curl else net_out
+    loss, aux = field_loss(pred, x, w1, w2, relative, norm)
     aux["pred"] = pred
     return loss, aux
 
@@ -185,8 +144,6 @@ def generator_loss(net_out: jnp.ndarray, x: jnp.ndarray, use_curl: bool,
 def autoencoder_loss(net_out: jnp.ndarray, z: jnp.ndarray, x: jnp.ndarray,
                      y: jnp.ndarray, use_curl: bool, num_param: int,
                      w1: float, w2: float, w3: float,
-                     fused: bool | None = None,
-                     mesh=None,
                      relative: bool = False,
                      norm: str = "l1") -> tuple[jnp.ndarray, dict]:
     """Arch "ae" loss: reconstruction + latent-parameter supervision.
@@ -195,8 +152,8 @@ def autoencoder_loss(net_out: jnp.ndarray, z: jnp.ndarray, x: jnp.ndarray,
     latent space is steerable (SURVEY.md §3.3).  ``relative``/``norm`` are
     the same quality knobs as :func:`generator_loss`.
     """
-    pred = apply_curl(net_out, fused, mesh) if use_curl else net_out
-    rec, aux = field_loss(pred, x, w1, w2, fused, mesh, relative, norm)
+    pred = apply_curl(net_out) if use_curl else net_out
+    rec, aux = field_loss(pred, x, w1, w2, relative, norm)
     loss_p = l2(z[:, :num_param], y[:, :num_param])
     aux.update({"loss_param": loss_p, "pred": pred})
     return rec + w3 * loss_p, aux

@@ -5,22 +5,51 @@ Reference: deep-fluids ``trainer.py`` optimizer setup (SURVEY.md §2
 
     lr(s) = lr_min + 0.5 · (lr_max − lr_min) · (1 + cos(π · s / S))
 
-rebuilt on optax.  The TrainState is the standard Flax functional train
-state (params + opt state + step), which pjit shards transparently.
+rebuilt on optax.  The TrainState is a functional train state (params +
+opt state + step), a pytree that pjit shards transparently.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Any, Callable
 
 import jax
 import jax.numpy as jnp
 import optax
-from flax.training import train_state
 
 
-class TrainState(train_state.TrainState):
-    """Flax TrainState; `lr_fn` rides along for logging (static, non-pytree)."""
+@functools.partial(jax.tree_util.register_dataclass,
+                   data_fields=["step", "params", "opt_state"],
+                   meta_fields=["apply_fn", "tx"])
+@dataclasses.dataclass(frozen=True)
+class TrainState:
+    """Params, optimizer state and step; ``apply_fn`` and ``tx`` are static
+    (part of the tree structure, not leaves)."""
+
+    step: Any
+    apply_fn: Callable
+    params: Any
+    tx: optax.GradientTransformation
+    opt_state: Any
+
+    @classmethod
+    def create(cls, *, apply_fn: Callable, params: Any,
+               tx: optax.GradientTransformation) -> "TrainState":
+        return cls(step=0, apply_fn=apply_fn, params=params, tx=tx,
+                   opt_state=tx.init(params))
+
+    def apply_gradients(self, *, grads: Any) -> "TrainState":
+        """One optimizer update; increments ``step``."""
+        updates, opt_state = self.tx.update(grads, self.opt_state,
+                                            self.params)
+        return self.replace(step=self.step + 1,
+                            params=optax.apply_updates(self.params, updates),
+                            opt_state=opt_state)
+
+    def replace(self, **changes) -> "TrainState":
+        return dataclasses.replace(self, **changes)
 
 
 def cosine_lr_schedule(lr_max: float, lr_min: float,

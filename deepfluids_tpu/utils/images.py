@@ -5,13 +5,16 @@ Reference: deep-fluids ``util.py`` ``save_image`` + trainer test dumps
 as vorticity (diverging colormap) or magnitude images, tiled into grids
 during training, assembled into GIFs for parameter/time sweeps.
 
-Colorization is pure numpy (no matplotlib dependency in the hot path);
-PIL writes PNGs, imageio assembles GIFs.
+Colorization is pure numpy (no matplotlib dependency in the hot path).
+PNGs are written with the standard library's zlib; GIFs with a fixed
+256-colour palette (3-3-2 bits of R, G, B).
 """
 
 from __future__ import annotations
 
 import os
+import struct
+import zlib
 from typing import Sequence
 
 import numpy as np
@@ -39,10 +42,84 @@ def _colorize_magnitude(x: np.ndarray, vmax: float | None = None) -> np.ndarray:
     return (np.stack([r, g, b], axis=-1) * 255).astype(np.uint8)
 
 
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data)))
+
+
+def write_png(path: str, rgb: np.ndarray) -> str:
+    """Write an [H, W, 3] uint8 image as an 8-bit RGB PNG."""
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    h, w, _ = rgb.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),   # filter type 0
+                           rgb.reshape(h, w * 3)], axis=1)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2,
+                                                0, 0, 0)))
+        f.write(_png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
+        f.write(_png_chunk(b"IEND", b""))
+    return path
+
+
+# GIF palette: index = RRRGGGBB, each level mapped to the middle of its bin.
+_GIF_PALETTE = np.stack(np.meshgrid(
+    np.arange(8) * 32 + 16, np.arange(8) * 32 + 16, np.arange(4) * 64 + 32,
+    indexing="ij"), -1).reshape(256, 3).astype(np.uint8)
+_GIF_RUN = 250   # literal codes between LZW clears (keeps codes 9 bits)
+
+
+def _gif_quantize(rgb: np.ndarray) -> np.ndarray:
+    r, g, b = (rgb[..., i].astype(np.uint16) for i in range(3))
+    return ((r >> 5) << 5 | (g >> 5) << 2 | (b >> 6)).astype(np.uint16)
+
+
+def _gif_lzw(indices: np.ndarray) -> bytes:
+    """LZW-coded image data at a fixed 9-bit code size.
+
+    Every pixel is sent as its own literal code and a clear code follows
+    each ``_GIF_RUN`` literals, before the decoder's table could outgrow 9
+    bits.  That trades compression for a vectorised encoder; any GIF
+    decoder reads the result."""
+    clear, eoi = 256, 257
+    px = indices.ravel()
+    n_runs = -(-px.size // _GIF_RUN)
+    codes = np.full(n_runs * (_GIF_RUN + 1), eoi, np.uint16)
+    body = codes.reshape(n_runs, _GIF_RUN + 1)
+    body[:, 0] = clear
+    flat = np.full(n_runs * _GIF_RUN, eoi, np.uint16)
+    flat[:px.size] = px
+    body[:, 1:] = flat.reshape(n_runs, _GIF_RUN)
+    codes = np.concatenate([codes[codes != eoi], [eoi]]).astype(np.uint16)
+    bits = ((codes[:, None] >> np.arange(9)) & 1).astype(np.uint8).ravel()
+    data = np.packbits(bits, bitorder="little").tobytes()
+    # Sub-blocks of at most 255 bytes, then a zero-length terminator.
+    blocks = b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                      for i in range(0, len(data), 255))
+    return bytes([8]) + blocks + b"\x00"
+
+
+def write_gif(path: str, frames: Sequence[np.ndarray], fps: int = 24) -> str:
+    """Write [H, W, 3] uint8 frames as a looping GIF89a animation."""
+    h, w, _ = frames[0].shape
+    delay = max(1, round(100 / fps))   # hundredths of a second
+    with open(path, "wb") as f:
+        f.write(b"GIF89a" + struct.pack("<HHBBB", w, h, 0xF7, 0, 0))
+        f.write(_GIF_PALETTE.tobytes())
+        f.write(b"\x21\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00")  # loop
+        for fr in frames:
+            f.write(b"\x21\xf9\x04\x04" + struct.pack("<H", delay)
+                    + b"\x00\x00")
+            f.write(b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h, 0))
+            f.write(_gif_lzw(_gif_quantize(np.asarray(fr, np.uint8))))
+        f.write(b"\x3b")
+    return path
+
+
 def _np_fdiff(x: np.ndarray, axis: int) -> np.ndarray:
     """numpy twin of ops.fd._fdiff (forward diff, last-derivative edge
     replication) — bit-identical values with zero device dispatches, so
-    threaded artifact writers never serialize on the runtime RPC channel."""
+    threaded artifact writers never wait on the device."""
     d = np.diff(x, axis=axis)
     idx = [slice(None)] * x.ndim
     idx[axis] = slice(-1, None)
@@ -106,19 +183,14 @@ def field_to_image(field: np.ndarray, mode: str = "vorticity",
 def save_field_image(path: str, field: np.ndarray, mode: str = "vorticity",
                      vmax: float | None = None,
                      projection: str = "slice") -> str:
-    from PIL import Image
-
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    Image.fromarray(field_to_image(field, mode, vmax, projection)).save(path)
-    return path
+    return write_png(path, field_to_image(field, mode, vmax, projection))
 
 
 def save_image_grid(path: str, fields: Sequence[np.ndarray], ncol: int = 0,
                     mode: str = "vorticity", vmax: float | None = None,
                     projection: str = "slice") -> str:
     """Tile several fields into one PNG montage (reference save_image)."""
-    from PIL import Image
-
     imgs = [field_to_image(f, mode, vmax, projection) for f in fields]
     n = len(imgs)
     ncol = ncol or int(np.ceil(np.sqrt(n)))
@@ -129,8 +201,7 @@ def save_image_grid(path: str, fields: Sequence[np.ndarray], ncol: int = 0,
         r, c = divmod(i, ncol)
         grid[r * h:(r + 1) * h, c * w:(c + 1) * w] = im
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    Image.fromarray(grid).save(path)
-    return path
+    return write_png(path, grid)
 
 
 def save_gif(path: str, fields: Sequence[np.ndarray], mode: str = "vorticity",
@@ -142,12 +213,9 @@ def save_gif(path: str, fields: Sequence[np.ndarray], mode: str = "vorticity",
     per-frame auto-normalization would recenter the colors every frame
     (a decaying plume renders at constant full saturation and the
     temporal evolution the GIF exists to show is erased)."""
-    import imageio
-
     if vmax is None:
         vmax = max((float(np.abs(_render_scalar(f, mode, projection)[0])
                           .max()) for f in fields), default=0.0) or None
     frames = [field_to_image(f, mode, vmax, projection) for f in fields]
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    imageio.mimsave(path, frames, duration=1.0 / fps, loop=0)
-    return path
+    return write_gif(path, frames, fps)

@@ -1,4 +1,4 @@
-// Native .npz field loader — the TPU-native answer to the reference's input
+// Native .npz field loader — this package's answer to the reference's input
 // bottleneck (SURVEY.md §3.1: the TF1 feeder threads' .npz decompression is
 // the classic stall).  One C call per file: zip central-directory walk +
 // raw-deflate inflate + .npy header parse + dtype convert to float32, all

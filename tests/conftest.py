@@ -1,7 +1,8 @@
 """Test configuration: run everything on a virtual 8-device CPU mesh.
 
 Must set the env vars BEFORE jax is imported anywhere (SURVEY.md §4: sharding
-is testable without a TPU pod via xla_force_host_platform_device_count).
+is testable without several accelerators via
+xla_force_host_platform_device_count).
 """
 
 import os
@@ -65,7 +66,6 @@ SLOW_TESTS = frozenset({
     "test_train.py::TestAugmentFlipX::test_trains_and_resumes_bitwise",
     "test_datagen.py::TestLiquidFLIP::test_batch_matches_single",
     "test_train.py::TestDeviceDataCache::test_streaming_to_accelerator_warns",
-    "test_train.py::TestFusedShardedTraining::test_forced_pallas_matches_oracle_params",
     "test_train.py::TestEvalHoldout::test_nn_holdout_partitions_pipeline",
     "test_parallel.py::TestHalo3D::test_curl3d_matches_oracle",
     "test_parallel.py::TestHalo3D::test_divfree_through_sharded_3d",

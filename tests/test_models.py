@@ -91,13 +91,11 @@ class TestAutoencoder:
 def _randomize_head(params):
     """The integrator head is zero-init by design (see LatentIntegrator);
     tests probing input->output dependence need a live head."""
-    import flax
-
-    params = flax.core.unfreeze(params)
-    k = params["params"]["fc_out"]["kernel"]
-    params["params"]["fc_out"]["kernel"] = 0.1 * jax.random.normal(
-        jax.random.key(99), k.shape, k.dtype)
-    return params
+    p = dict(params["params"])
+    k = p["fc_out"]["kernel"]
+    p["fc_out"] = dict(p["fc_out"], kernel=0.1 * jax.random.normal(
+        jax.random.key(99), k.shape, k.dtype))
+    return {"params": p}
 
 
 class TestLatentIntegrator:

@@ -2,7 +2,7 @@
 
 Spawns TWO real OS processes, each with 4 virtual CPU devices, wired by
 ``jax.distributed.initialize`` through ``parallel.mesh.init_distributed``
-(gloo collectives standing in for DCN), runs data-parallel train steps of
+(gloo collectives standing in for the network between hosts), runs data-parallel train steps of
 the real model stack over the 2x4-device GLOBAL mesh, and asserts the
 per-step losses (a) agree across processes and (b) equal a single-process
 run on the same 8 devices, batches, and init.

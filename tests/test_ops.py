@@ -2,7 +2,8 @@
 
 Pins down: analytic derivatives, exact interior divergence-freeness of
 curl-produced fields (the reference's key architectural invariant), shape
-preservation, batching, and the Pallas kernels against the jnp oracle.
+preservation, batching, and the stencils and their gradients against an
+independent numpy reference.
 """
 
 import jax
@@ -144,87 +145,128 @@ class TestGradFlow:
         assert np.isfinite(np.asarray(g)).all()
 
 
-class TestPallasParity:
-    """Pallas kernels (interpret mode on CPU) vs the jnp oracle."""
+def _np_fdiff(x, axis):
+    """Independent forward difference: explicit index arithmetic, last
+    sample repeats the previous derivative (edge replication)."""
+    x = np.moveaxis(np.asarray(x, np.float64), axis, 0)
+    d = np.empty_like(x)
+    d[:-1] = x[1:] - x[:-1]
+    d[-1] = x[-1] - x[-2]
+    return np.moveaxis(d, 0, axis)
+
+
+def _np_fdiff_t(g, axis):
+    """Explicit transpose of the edge-replicated forward difference W
+    (x_bar = W^T d_bar), written out per row:
+
+      x_bar[0]   = -d_bar[0]
+      x_bar[j]   = d_bar[j-1] - d_bar[j]                   (interior)
+      x_bar[n-2] = d_bar[n-3] - d_bar[n-2] - d_bar[n-1]
+      x_bar[n-1] = d_bar[n-2] + d_bar[n-1]
+    """
+    g = np.moveaxis(np.asarray(g, np.float64), axis, 0)
+    x = np.zeros_like(g)
+    x[0] = -g[0]
+    x[1:] = g[:-1] - g[1:]
+    x[-2] = g[-3] - g[-2] - g[-1]
+    x[-1] = g[-2] + g[-1]
+    return np.moveaxis(x, 0, axis)
+
+
+def _np_curl2d(psi):
+    p = psi[..., 0]
+    return np.stack([_np_fdiff(p, -2), -_np_fdiff(p, -1)], -1)
+
+
+def _np_jacobian2d(x):
+    u, v = x[..., 0], x[..., 1]
+    j = np.stack([_np_fdiff(u, -1), _np_fdiff(u, -2),
+                  _np_fdiff(v, -1), _np_fdiff(v, -2)], -1)
+    return j, (j[..., 2] - j[..., 1])[..., None]
+
+
+def _np_curl3d(psi):
+    a, b, c = psi[..., 0], psi[..., 1], psi[..., 2]
+    return np.stack([_np_fdiff(c, -2) - _np_fdiff(b, -3),
+                     _np_fdiff(a, -3) - _np_fdiff(c, -1),
+                     _np_fdiff(b, -1) - _np_fdiff(a, -2)], -1)
+
+
+def _np_jacobian3d(x):
+    d = [[_np_fdiff(x[..., i], ax) for ax in (-1, -2, -3)] for i in range(3)]
+    j = np.stack([d[i][k] for i in range(3) for k in range(3)], -1)
+    vort = np.stack([d[2][1] - d[1][2], d[0][2] - d[2][0],
+                     d[1][0] - d[0][1]], -1)
+    return j, vort
+
+
+class TestOracleVsNumpy:
+    """ops.fd against an independent numpy forward-difference reference,
+    at the shapes the removed kernels were checked at."""
 
     @pytest.mark.parametrize("shape", [(2, 16, 12), (1, 128, 96), (3, 8, 8)])
-    def test_curl2d_fused(self, shape):
-        rng = np.random.default_rng(4)
-        b, h, w = shape
-        psi = jnp.asarray(rng.standard_normal((b, h, w, 1)), jnp.float32)
-        got = np.asarray(ops.curl2d_fused(psi))
-        want = np.asarray(ops.curl2d(psi))
-        np.testing.assert_allclose(got, want, atol=1e-6)
+    def test_curl2d(self, shape):
+        psi = np.random.default_rng(4).standard_normal(shape + (1,))
+        got = np.asarray(ops.curl2d(jnp.asarray(psi, jnp.float32)))
+        np.testing.assert_allclose(got, _np_curl2d(psi), atol=1e-5)
 
     @pytest.mark.parametrize("shape", [(2, 16, 12), (1, 128, 96)])
-    def test_jacobian2d_fused(self, shape):
-        rng = np.random.default_rng(5)
-        b, h, w = shape
-        x = jnp.asarray(rng.standard_normal((b, h, w, 2)), jnp.float32)
-        gj, gw = ops.jacobian2d_fused(x)
-        wj, ww = ops.jacobian2d(x)
-        np.testing.assert_allclose(np.asarray(gj), np.asarray(wj), atol=1e-6)
-        np.testing.assert_allclose(np.asarray(gw), np.asarray(ww), atol=1e-6)
+    def test_jacobian2d(self, shape):
+        x = np.random.default_rng(5).standard_normal(shape + (2,))
+        gj, gw = ops.jacobian2d(jnp.asarray(x, jnp.float32))
+        wj, ww = _np_jacobian2d(x)
+        np.testing.assert_allclose(np.asarray(gj), wj, atol=1e-5)
+        np.testing.assert_allclose(np.asarray(gw), ww, atol=1e-5)
 
     @pytest.mark.parametrize("shape", [(2, 6, 10, 12), (1, 8, 16, 16)])
-    def test_curl3d_fused(self, shape):
-        rng = np.random.default_rng(6)
-        b, d, h, w = shape
-        psi = jnp.asarray(rng.standard_normal((b, d, h, w, 3)), jnp.float32)
-        got = np.asarray(ops.curl3d_fused(psi))
-        want = np.asarray(ops.curl3d(psi))
-        np.testing.assert_allclose(got, want, atol=1e-6)
+    def test_curl3d(self, shape):
+        psi = np.random.default_rng(6).standard_normal(shape + (3,))
+        got = np.asarray(ops.curl3d(jnp.asarray(psi, jnp.float32)))
+        np.testing.assert_allclose(got, _np_curl3d(psi), atol=1e-5)
 
     @pytest.mark.parametrize("shape", [(2, 6, 10, 12)])
-    def test_jacobian3d_fused(self, shape):
-        rng = np.random.default_rng(7)
-        b, d, h, w = shape
-        x = jnp.asarray(rng.standard_normal((b, d, h, w, 3)), jnp.float32)
-        gj, gw = ops.jacobian3d_fused(x)
-        wj, ww = ops.jacobian3d(x)
-        np.testing.assert_allclose(np.asarray(gj), np.asarray(wj), atol=1e-6)
-        np.testing.assert_allclose(np.asarray(gw), np.asarray(ww), atol=1e-6)
+    def test_jacobian3d(self, shape):
+        x = np.random.default_rng(7).standard_normal(shape + (3,))
+        gj, gw = ops.jacobian3d(jnp.asarray(x, jnp.float32))
+        wj, ww = _np_jacobian3d(x)
+        np.testing.assert_allclose(np.asarray(gj), wj, atol=1e-5)
+        np.testing.assert_allclose(np.asarray(gw), ww, atol=1e-5)
 
-    def test_curl3d_fused_divfree(self):
-        rng = np.random.default_rng(8)
-        psi = jnp.asarray(rng.standard_normal((1, 8, 12, 16, 3)), jnp.float32)
-        u = ops.curl3d_fused(psi)
-        div = np.asarray(ops.divergence3d(u))[:, :-2, :-2, :-2]
-        np.testing.assert_allclose(div, 0.0, atol=1e-5)
+    def test_curl3d_divfree(self):
+        psi = np.random.default_rng(8).standard_normal((1, 8, 12, 16, 3))
+        u = _np_curl3d(psi)
+        div = (_np_fdiff(u[..., 0], -1) + _np_fdiff(u[..., 1], -2)
+               + _np_fdiff(u[..., 2], -3))[:, :-2, :-2, :-2]
+        np.testing.assert_allclose(div, 0.0, atol=1e-10)
 
 
-class TestCustomVJP:
-    """Differentiable fused stencils: grads must match jax.grad of the
-    oracle (interpret mode on CPU)."""
+class TestTransposedStencil:
+    """jax.grad of the oracle against the explicit transposed stencil."""
 
-    def test_curl2d_p_grad(self):
+    def test_curl2d_grad(self):
         rng = np.random.default_rng(9)
         psi = jnp.asarray(rng.standard_normal((2, 16, 12, 1)), jnp.float32)
-        g = jnp.asarray(rng.standard_normal((2, 16, 12, 2)), jnp.float32)
-        go = jax.grad(lambda p: jnp.sum(ops.curl2d(p) * g))(psi)
-        from deepfluids_tpu.ops.pallas_fd import curl2d_p
+        g = rng.standard_normal((2, 16, 12, 2))
+        got = jax.grad(lambda p: jnp.sum(ops.curl2d(p) * g))(psi)
+        want = _np_fdiff_t(g[..., 0], -2) - _np_fdiff_t(g[..., 1], -1)
+        np.testing.assert_allclose(np.asarray(got)[..., 0], want, atol=1e-5)
 
-        gp = jax.grad(lambda p: jnp.sum(curl2d_p(p) * g))(psi)
-        np.testing.assert_allclose(np.asarray(go), np.asarray(gp),
-                                   atol=1e-5)
-
-    def test_jacobian2d_p_grad(self):
+    def test_jacobian2d_grad(self):
         rng = np.random.default_rng(10)
         x = jnp.asarray(rng.standard_normal((2, 16, 12, 2)), jnp.float32)
-        gj = jnp.asarray(rng.standard_normal((2, 16, 12, 4)), jnp.float32)
-        gw = jnp.asarray(rng.standard_normal((2, 16, 12, 1)), jnp.float32)
-        from deepfluids_tpu.ops.pallas_fd import jacobian2d_p
+        gj = rng.standard_normal((2, 16, 12, 4))
+        gw = rng.standard_normal((2, 16, 12, 1))[..., 0]
 
         def lo(v):
             j, w = ops.jacobian2d(v)
-            return jnp.sum(j * gj) + jnp.sum(w * gw)
+            return jnp.sum(j * gj) + jnp.sum(w[..., 0] * gw)
 
-        def lp(v):
-            j, w = jacobian2d_p(v)
-            return jnp.sum(j * gj) + jnp.sum(w * gw)
-
-        np.testing.assert_allclose(np.asarray(jax.grad(lo)(x)),
-                                   np.asarray(jax.grad(lp)(x)), atol=1e-5)
+        got = np.asarray(jax.grad(lo)(x))
+        t = _np_fdiff_t
+        # w = dvdx - dudy adds -gw to dudy's and +gw to dvdx's cotangent.
+        u = t(gj[..., 0], -1) + t(gj[..., 1] - gw, -2)
+        v = t(gj[..., 2] + gw, -1) + t(gj[..., 3], -2)
+        np.testing.assert_allclose(got, np.stack([u, v], -1), atol=1e-5)
 
     def test_vjp_loss_path_end_to_end(self):
         # The actual train-loss composition through the dispatching wrappers.
@@ -236,34 +278,43 @@ class TestCustomVJP:
         g = jax.grad(lambda p: generator_loss(p, x, True, 1.0, 1.0)[0])(psi)
         assert np.isfinite(np.asarray(g)).all()
 
-    def test_curl3d_p_grad(self):
+    def test_curl3d_grad(self):
         rng = np.random.default_rng(12)
         psi = jnp.asarray(rng.standard_normal((2, 6, 10, 12, 3)),
                           jnp.float32)
-        g = jnp.asarray(rng.standard_normal((2, 6, 10, 12, 3)), jnp.float32)
-        from deepfluids_tpu.ops.pallas_fd import curl3d_p
+        g = rng.standard_normal((2, 6, 10, 12, 3))
+        got = np.asarray(jax.grad(lambda p: jnp.sum(ops.curl3d(p) * g))(psi))
+        t = _np_fdiff_t
+        gu, gv, gw = g[..., 0], g[..., 1], g[..., 2]
+        # u = dc/dy - db/dz, v = da/dz - dc/dx, w = db/dx - da/dy
+        a = t(gv, -3) - t(gw, -2)
+        b = t(gw, -1) - t(gu, -3)
+        c = t(gu, -2) - t(gv, -1)
+        np.testing.assert_allclose(got, np.stack([a, b, c], -1), atol=1e-5)
 
-        go = jax.grad(lambda p: jnp.sum(ops.curl3d(p) * g))(psi)
-        gp = jax.grad(lambda p: jnp.sum(curl3d_p(p) * g))(psi)
-        np.testing.assert_allclose(np.asarray(go), np.asarray(gp),
-                                   atol=1e-5)
-
-    def test_jacobian3d_p_grad(self):
+    def test_jacobian3d_grad(self):
         rng = np.random.default_rng(13)
         x = jnp.asarray(rng.standard_normal((1, 6, 10, 12, 3)), jnp.float32)
-        gj = jnp.asarray(rng.standard_normal((1, 6, 10, 12, 9)),
-                         jnp.float32)
-        gv = jnp.asarray(rng.standard_normal((1, 6, 10, 12, 3)),
-                         jnp.float32)
-        from deepfluids_tpu.ops.pallas_fd import jacobian3d_p
+        gj = rng.standard_normal((1, 6, 10, 12, 9))
+        gv = rng.standard_normal((1, 6, 10, 12, 3))
 
         def lo(v):
             j, w = ops.jacobian3d(v)
             return jnp.sum(j * gj) + jnp.sum(w * gv)
 
-        def lp(v):
-            j, w = jacobian3d_p(v)
-            return jnp.sum(j * gj) + jnp.sum(w * gv)
-
-        np.testing.assert_allclose(np.asarray(jax.grad(lo)(x)),
-                                   np.asarray(jax.grad(lp)(x)), atol=1e-5)
+        got = np.asarray(jax.grad(lo)(x))
+        # Cotangent of each derivative d_i/d_ax: its J entry plus the
+        # vorticity terms it appears in (w0 = dwdy - dvdz, w1 = dudz -
+        # dwdx, w2 = dvdx - dudy).
+        cot = [[gj[..., 3 * i + k].copy() for k in range(3)]
+               for i in range(3)]
+        cot[2][1] += gv[..., 0]
+        cot[1][2] -= gv[..., 0]
+        cot[0][2] += gv[..., 1]
+        cot[2][0] -= gv[..., 1]
+        cot[1][0] += gv[..., 2]
+        cot[0][1] -= gv[..., 2]
+        want = np.stack([sum(_np_fdiff_t(cot[i][k], ax)
+                             for k, ax in enumerate((-1, -2, -3)))
+                         for i in range(3)], -1)
+        np.testing.assert_allclose(got, want, atol=1e-5)

@@ -1,5 +1,5 @@
 """Sharded-stencil + advection tests on the 8-device CPU mesh
-(SURVEY.md §4: multi-device tests without a TPU pod)."""
+(SURVEY.md §4: multi-device tests without several accelerators)."""
 
 import jax
 import jax.numpy as jnp
@@ -50,62 +50,37 @@ class TestHaloStencils:
 
 
 class TestShardedFusedStencils:
-    """Multi-chip fused Pallas path (losses._maybe_shard_batch): shard_map
-    over the batch axis keeps the kernels fused per-shard instead of
-    all-gathering (r1 VERDICT item #2).  DEEPFLUIDS_PALLAS=1 forces the
-    pallas code path on the CPU mesh (interpret-mode kernels) — the exact
-    composition the multi-chip TPU trainer runs."""
+    """The XLA-fused loss stencils on a batch-sharded data mesh: GSPMD
+    partitions the plain ops.fd stencils over the batch axis, and loss and
+    grads must equal the single-device result (the data-parallel path)."""
 
-    def test_generator_loss_and_grads_match_oracle(self, monkeypatch):
-        monkeypatch.setenv("DEEPFLUIDS_PALLAS", "1")
+    def _check(self, psi, x):
         from deepfluids_tpu.parallel import shard_batch
         from deepfluids_tpu.train import losses
 
         mesh = make_mesh()
+
+        def loss(p, x):
+            return losses.generator_loss(p, x, True, 1.0, 1.0)[0]
+
+        vg = jax.jit(jax.value_and_grad(loss))
+        ls, gs = vg(*shard_batch(mesh, psi, x))
+        one = jax.devices()[0]
+        l1, g1 = vg(jax.device_put(psi, one), jax.device_put(x, one))
+        np.testing.assert_allclose(float(ls), float(l1), rtol=1e-6)
+        np.testing.assert_allclose(np.asarray(gs), np.asarray(g1), atol=1e-6)
+        assert gs.sharding.num_devices == 8  # stayed sharded end-to-end
+
+    def test_generator_loss_and_grads_match_oracle(self):
         rng = np.random.default_rng(7)
-        psi = rng.standard_normal((8, 16, 16, 1)).astype(np.float32)
-        x = jnp.asarray(rng.standard_normal((8, 16, 16, 2)), jnp.float32)
+        self._check(rng.standard_normal((8, 16, 16, 1)).astype(np.float32),
+                    rng.standard_normal((8, 16, 16, 2)).astype(np.float32))
 
-        def loss_fused(p):
-            l, _ = losses.generator_loss(p, x, True, 1.0, 1.0, True, mesh)
-            return l
-
-        def loss_oracle(p):
-            l, _ = losses.generator_loss(p, x, True, 1.0, 1.0, False)
-            return l
-
-        psi_s = shard_batch(mesh, psi)
-        lf, gf = jax.jit(jax.value_and_grad(loss_fused))(psi_s)
-        lo, go = jax.jit(jax.value_and_grad(loss_oracle))(jnp.asarray(psi))
-        np.testing.assert_allclose(float(lf), float(lo), rtol=1e-6)
-        np.testing.assert_allclose(np.asarray(gf), np.asarray(go),
-                                   atol=1e-6)
-        assert gf.sharding.num_devices == 8  # stayed sharded end-to-end
-
-    def test_3d_loss_and_grads_match_oracle(self, monkeypatch):
-        monkeypatch.setenv("DEEPFLUIDS_PALLAS", "1")
-        from deepfluids_tpu.parallel import shard_batch
-        from deepfluids_tpu.train import losses
-
-        mesh = make_mesh()
+    def test_3d_loss_and_grads_match_oracle(self):
         rng = np.random.default_rng(8)
-        psi = rng.standard_normal((8, 6, 8, 8, 3)).astype(np.float32)
-        x = jnp.asarray(rng.standard_normal((8, 6, 8, 8, 3)), jnp.float32)
-
-        def loss_fused(p):
-            l, _ = losses.generator_loss(p, x, True, 1.0, 1.0, True, mesh)
-            return l
-
-        def loss_oracle(p):
-            l, _ = losses.generator_loss(p, x, True, 1.0, 1.0, False)
-            return l
-
-        psi_s = shard_batch(mesh, psi)
-        lf, gf = jax.jit(jax.value_and_grad(loss_fused))(psi_s)
-        lo, go = jax.jit(jax.value_and_grad(loss_oracle))(jnp.asarray(psi))
-        np.testing.assert_allclose(float(lf), float(lo), rtol=1e-6)
-        np.testing.assert_allclose(np.asarray(gf), np.asarray(go),
-                                   atol=1e-6)
+        self._check(
+            rng.standard_normal((8, 6, 8, 8, 3)).astype(np.float32),
+            rng.standard_normal((8, 6, 8, 8, 3)).astype(np.float32))
 
 
 class TestRealisticResolutionSharded:
@@ -291,7 +266,7 @@ class TestSpatialLossKnobs:
         for relative in (False, True):
             for norm in ("l1", "l2"):
                 ref, _ = losses.generator_loss(
-                    psi, x, True, 1.0, 1.0, fused=False,
+                    psi, x, True, 1.0, 1.0,
                     relative=relative, norm=norm)
                 sp, _ = losses.generator_loss_spatial(
                     psi, x, True, 1.0, 1.0, mesh,

@@ -5,6 +5,7 @@ Goldens are committed under tests/golden/ and regenerated only via
 tools/make_goldens.py after INTENTIONAL semantic changes."""
 
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -72,15 +73,60 @@ class TestGoldenSolver:
                             TOL)["passed"]
 
 
+def _golden_params(g):
+    """The ``params/...`` arrays of a model golden as a nested dict (the
+    goldens hold Flax-initialised weights and Flax forward outputs)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
+                                    "tools"))
+    import weights_io
+
+    return weights_io.unflatten_params(
+        {k[len("params/"):]: g[k] for k in g.files if k.startswith("params/")})
+
+
+def _same_structure(model, g, *x):
+    """Our init creates exactly the golden's parameter paths and shapes."""
+    ours = jax.tree_util.tree_flatten_with_path(
+        model.init(jax.random.PRNGKey(0), *x)["params"])[0]
+    theirs = {k: g[k].shape for k in g.files if k.startswith("params/")}
+    assert {"params/" + "/".join(p.key for p in path): v.shape
+            for path, v in ours} == theirs
+
+
 class TestGoldenGenerator:
     def test_generator_forward(self):
         from deepfluids_tpu.models import GeneratorBE
 
         g = _load("generator2d.npz")
         model = GeneratorBE(output_shape=(32, 24, 1), filters=8, num_conv=2)
-        params = model.init(jax.random.PRNGKey(7), jnp.asarray(g["p"]))
-        out = np.asarray(ops.curl2d(model.apply(params, jnp.asarray(g["p"]))))
+        _same_structure(model, g, jnp.asarray(g["p"]))
+        out = np.asarray(ops.curl2d(model.apply(
+            {"params": _golden_params(g)}, jnp.asarray(g["p"]))))
         assert check_fields(out, g["u"], TOL)["passed"]
+
+    def test_autoencoder_forward(self):
+        from deepfluids_tpu.models import Autoencoder
+
+        g = _load("autoencoder2d.npz")
+        model = Autoencoder(output_shape=(16, 16, 1), z_num=8, filters=8,
+                            num_conv=1, num_param=3, pred_hidden=16)
+        _same_structure(model, g, jnp.asarray(g["x"]))
+        v = {"params": _golden_params(g)}
+        psi, z = model.apply(v, jnp.asarray(g["x"]))
+        dz = model.apply(v, z, jnp.asarray(g["dp"]), method=model.predict)
+        assert check_fields(np.asarray(psi), g["psi"], TOL)["passed"]
+        assert normalized_l2(np.asarray(z), g["z"]) < TOL
+        assert normalized_l2(np.asarray(dz), g["dz"]) < TOL
+
+    def test_integrator_forward(self):
+        from deepfluids_tpu.models import LatentIntegrator
+
+        g = _load("integrator.npz")
+        model = LatentIntegrator(z_num=8, num_param=2, hidden=16, depth=2)
+        _same_structure(model, g, jnp.asarray(g["z"]), jnp.asarray(g["dp"]))
+        dz = model.apply({"params": _golden_params(g)}, jnp.asarray(g["z"]),
+                         jnp.asarray(g["dp"]))
+        assert normalized_l2(np.asarray(dz), g["dz"]) < TOL
 
 
 class TestWeightsIO:

@@ -1,11 +1,12 @@
-"""Multi-host (DCN-analogue) launch recipe — executed, not hypothetical.
+"""Multi-host launch recipe — executed, not hypothetical.
 
 SURVEY.md §2 "Comm backend" / §5 "Distributed comm backend" name
 `jax.distributed.initialize` for multi-host runs.  This script is the
 runnable proof on one machine: it spawns N worker PROCESSES, each owning
 ``--devices_per_process`` virtual CPU devices, wires them together through
 ``deepfluids_tpu.parallel.mesh.init_distributed()`` (coordinator on
-localhost; gloo CPU collectives standing in for DCN), and runs a
+localhost; gloo CPU collectives standing in for the network between
+hosts), and runs a
 data-parallel training step of the real model stack (GeneratorBE +
 curl/jacobian loss + Adam) over the GLOBAL mesh — gradients all-reduced
 across process boundaries.
@@ -18,9 +19,9 @@ Usage (the recipe; tests/test_multihost.py runs exactly this)::
 
     python tools/launch_multihost.py --num_processes 2 --devices_per_process 4
 
-On a real TPU pod the same code path is: set JAX_COORDINATOR_ADDRESS /
-JAX_NUM_PROCESSES / JAX_PROCESS_ID per host (or let the pod scheduler's
-autodetection do it), run ``python -m deepfluids_tpu.main`` — main() calls
+On a real multi-host cluster the same code path is: set
+JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID per host (or
+let the cluster scheduler's autodetection do it), run ``python -m deepfluids_tpu.main`` — main() calls
 init_distributed() unconditionally.
 """
 

@@ -5,6 +5,11 @@ discretization semantics; tests/test_parity.py compares fresh computations
 against these dumps with the [B] normalized-L2 < 1e-3 gate, so accidental
 drift in the FD scheme, boundary handling, model wiring, or solver stepping
 fails CI loudly.
+
+The model goldens (generator2d, autoencoder2d, integrator) hold weights that
+were initialised by the Flax implementation this package replaced, beside
+that implementation's outputs.  This script keeps those weights and
+recomputes only the generator's outputs.
 """
 
 import os
@@ -20,10 +25,12 @@ import jax.numpy as jnp
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from deepfluids_tpu import ops
 from deepfluids_tpu.datagen.smoke2d import Smoke2DConfig, simulate_smoke2d
 from deepfluids_tpu.models import GeneratorBE
+from weights_io import unflatten_params
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tests", "golden")
@@ -52,13 +59,17 @@ def main():
     np.savez_compressed(os.path.join(GOLDEN_DIR, "smoke2d.npz"),
                         v=np.asarray(vt), r=np.asarray(rt))
 
-    # 3) Generator forward with a fixed init.
+    # 3) Generator forward with the committed weights.
+    path = os.path.join(GOLDEN_DIR, "generator2d.npz")
+    with np.load(path) as g:
+        weights = {k: g[k] for k in g.files if k.startswith("params/")}
+        p = g["p"]
+    params = unflatten_params({k[len("params/"):]: v
+                               for k, v in weights.items()})
     model = GeneratorBE(output_shape=(32, 24, 1), filters=8, num_conv=2)
-    p = jnp.asarray(rng.uniform(-1, 1, (4, 3)).astype(np.float32))
-    params = model.init(jax.random.PRNGKey(7), p)
-    out = np.asarray(ops.curl2d(model.apply(params, p)))
-    np.savez_compressed(os.path.join(GOLDEN_DIR, "generator2d.npz"),
-                        p=np.asarray(p), u=out)
+    out = np.asarray(ops.curl2d(model.apply({"params": params},
+                                            jnp.asarray(p))))
+    np.savez_compressed(path, p=p, u=out, **weights)
 
     print(f"goldens written to {GOLDEN_DIR}")
 

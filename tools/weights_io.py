@@ -1,4 +1,4 @@
-"""Framework-agnostic weight interchange (.npz <-> Flax param tree).
+"""Framework-agnostic weight interchange (.npz <-> nested param tree).
 
 SURVEY.md §7 step 2 requires the model family to be weight-convertible with
 the reference's TF1 checkpoints (same layer counts / filter sizes).  TF1
@@ -15,7 +15,8 @@ Export a TF1 checkpoint to that form with any TF tool
                like GeneratorBE, where every conv has a distinct stage
                shape or a stable ordering); ambiguities are reported.
 
-Conv kernels are expected HWIO (TF and Flax agree for 2D/3D convs);
+Conv kernels are expected HWIO (TF and models/layers.py agree for 2D/3D
+convs);
 dense kernels (in, out) — also agreeing — so no transposition is needed
 for reference-shaped weights.
 """
@@ -29,7 +30,7 @@ import numpy as np
 
 
 def flatten_params(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
-    """Flax param dict -> {'a/b/kernel': array} (declaration order)."""
+    """Nested param dict -> {'a/b/kernel': array} (declaration order)."""
     out: dict[str, np.ndarray] = {}
     if isinstance(tree, dict):
         for k, v in tree.items():
